@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Zero-copy Arrow interop: pyarrow in → TPU engines → Arrow out.
+"""Zero-copy Arrow interop: pyarrow in → device engines → Arrow out.
 
 The reference's Python binding speaks the Arrow PyCapsule protocol on
 ``Strs`` (``python/stringzilla.c:15``); here the same protocol connects any

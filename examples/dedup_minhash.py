@@ -2,7 +2,7 @@
 """Near-duplicate detection over a document corpus with MinHash fingerprints.
 
 The reference's flagship batch workflow (``szs.Fingerprints`` +
-Jaccard-over-minhash retrieval): fingerprint every document on the TPU,
+Jaccard-over-minhash retrieval): fingerprint every document on the GPU,
 then find near-duplicate pairs by hashed-band bucketing (classic LSH).
 
     python examples/dedup_minhash.py [path-to-text-file]

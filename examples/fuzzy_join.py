@@ -2,7 +2,7 @@
 """Fuzzy join of two string collections by edit distance.
 
 The reference's headline batch workload (``szs.LevenshteinDistances``):
-score every (query, candidate) pair on the TPU and pick the best match
+score every (query, candidate) pair on the GPU and pick the best match
 per query under a distance budget.
 
     python examples/fuzzy_join.py

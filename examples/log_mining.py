@@ -2,7 +2,7 @@
 """Single-string ops over a big buffer: search, counting, transforms.
 
 Mirrors the reference's ``Str``/``File`` workflow — a memory-mapped (or
-in-memory) buffer whose searches dispatch to the streaming TPU kernels
+in-memory) buffer whose searches dispatch to the device search passes
 above ~1 MiB.
 
     python examples/log_mining.py [path]

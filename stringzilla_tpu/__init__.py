@@ -1,13 +1,13 @@
-"""stringzilla_tpu — a TPU-native batch string-processing framework.
+"""stringzilla_tpu — a batch string-processing framework for GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of StringZilla v5
-(reference mounted at /root/reference): batch similarity scoring, rolling
-MinHash fingerprints, exact search, hashing, sorting, and Unicode processing,
-device-resident over Arrow-style tapes and sharded across TPU meshes.
+A JAX/XLA/Pallas re-design of the capabilities of StringZilla v5: batch
+similarity scoring, rolling MinHash fingerprints, exact search, hashing,
+sorting, and Unicode processing, device-resident over Arrow-style tapes and
+sharded across device meshes.
 
 Layout (mirrors the reference's two-tier split, ``README.md:368-376``):
 
-* ``stringzilla_tpu.ops``     — kernels: jnp oracles + Pallas TPU kernels
+* ``stringzilla_tpu.ops``     — kernels: plain XLA forms + Pallas kernels
 * ``stringzilla_tpu.models``  — engine classes (the ``szs.*`` public API)
 * ``stringzilla_tpu.parallel``— mesh sharding / collectives
 * ``stringzilla_tpu.utils``   — platform dispatch, helpers
@@ -49,9 +49,7 @@ from .utils import platform
 
 # Module-level function surface mirroring the reference binding
 # (``python/stringzilla.c:9531-9612``). find/rfind/count dispatch through
-# ``Str`` so big buffers take the same streaming Pallas tier as ``Str.find``
-# (the XLA dense tier in ``ops.find`` materializes k shifted compares and is
-# the wrong shape past ~100 MB); ``ops.find`` remains the jnp oracle tier.
+# ``Str`` so big buffers take the same device tier as ``Str.find``.
 
 
 def find(haystack, needle) -> int:
@@ -107,14 +105,14 @@ def sha256(data) -> bytes:
 def reset_capabilities(*caps) -> None:
     """Restrict/restore the backend tier (binding ``sz.reset_capabilities``,
     reference ``README.md:954-962``): ``reset_capabilities('serial')`` forces
-    the interpreted/jnp tier, ``reset_capabilities()`` restores hardware
-    dispatch."""
+    the host/interpreted tier, ``reset_capabilities('gpu')`` the compiled
+    GPU tier, ``reset_capabilities()`` restores detection."""
     if not caps or caps == ("all",):
         platform.force_backend(None)
     elif "serial" in caps or "interpret" in caps:
-        platform.force_backend("interpret")
-    elif "tpu" in caps or "pallas" in caps:
-        platform.force_backend("tpu")
+        platform.force_backend("cpu")
+    elif "gpu" in caps:
+        platform.force_backend("gpu")
     else:
         raise ValueError(f"unknown capability set {caps!r}")
 

@@ -1,13 +1,14 @@
-"""DeviceScope — execution placement handle, the TPU analog of the reference's
+"""DeviceScope — execution placement handle, the counterpart of the reference's
 ``szs_device_scope_t`` (reference ``c/stringzillas/stringzillas.cuh:276-331``,
 Python type ``python/stringzillas.c:198-199``).
 
-The reference's scope is a variant of {default, cpu(cores), gpu(device)}. On
-TPU the axes collapse into one: *which devices participate*. A scope therefore
-wraps a ``jax.sharding.Mesh``:
+The reference's scope is a variant of {default, cpu(cores), gpu(device)}.
+Under JAX the axes collapse into one: *which devices participate*. A scope
+therefore wraps a ``jax.sharding.Mesh`` (1-D: the GPUs of a host are joined
+all to all over NVLink, so the mesh needs no torus shape):
 
 * ``DeviceScope()``                 — all addressable devices, 1-D ``data`` axis
-* ``DeviceScope(device_index=k)``   — a single chip (analog of ``gpu_device=k``)
+* ``DeviceScope(device_index=k)``   — a single device (``gpu_device=k``)
 * ``DeviceScope(mesh=my_mesh)``     — bring-your-own mesh
 * ``DeviceScope(cpu_cores=n)``      — accepted for API parity; thread counts are
   meaningless under XLA, so ``n`` picks min(n, device_count) devices instead.

@@ -6,9 +6,9 @@ alphabet_size=256, seed=0, capabilities=None)`` (``python/stringzillas.c:
 ``(min_hashes, min_counts)`` — two ``(docs, ndim) uint32`` arrays
 (``python/stringzillas.c:2162-2300``, C ABI ``stringzillas.h:516-580``).
 
-Outputs are bit-identical to the reference's f64 engines: the TPU kernel
+Outputs are bit-identical to the reference's f64 engines: the device form
 computes the same 52-bit modular arithmetic in int32 limbs (see
-``ops/fingerprints_pallas.py``).
+``ops/fingerprints.py``).
 """
 
 from __future__ import annotations
@@ -16,8 +16,8 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
-from ..ops.fingerprints import DEFAULT_WINDOW_WIDTHS, derive_params
-from ..ops.fingerprints_pallas import fingerprint_all_groups, pack_limbs
+from ..ops.fingerprints import (DEFAULT_WINDOW_WIDTHS, derive_params,
+                                fingerprint_all_groups, pack_limbs)
 from ..ops.tape import Tape, round_up
 from .device_scope import DeviceScope, default_device_scope
 
@@ -41,8 +41,8 @@ class Fingerprints:
         self.window_widths = tuple(int(w) for w in window_widths) if window_widths is not None else DEFAULT_WINDOW_WIDTHS
         self._params = derive_params(self.ndim, self.window_widths, self.seed)
         # Dimensions grouped by window width into contiguous row blocks (each
-        # padded to a sublane multiple); ALL groups run as ONE kernel launch
-        # with their dims concatenated down the sublane axis.
+        # padded to a multiple of 8); ALL groups run in ONE pass with their
+        # dims concatenated down the row axis.
         widths = self._params["width"]
         distinct = sorted(set(int(x) for x in widths))
         sizes, rows, pads = [], [], []

@@ -14,9 +14,10 @@ return ``int64`` (``sz_ssize_t*``, ``stringzillas.h:358``).
 
 Host-side scheduling: inputs are grouped into dyadic length buckets (the
 reference's ``candidate_length_bucket_`` trick, ``serial.hpp:3442-3444``) so
-every device kernel sees a static shape with <2x padding waste; each
-(query-bucket x candidate-bucket) tile is scored by the lane-packed Pallas DP
-and scattered into the result matrix.
+every device program sees a static shape with <2x padding waste; each
+(query-bucket x candidate-bucket) tile is scored on the device — the Myers
+kernel for unit costs, the lane-packed DP for the rest — and scattered into
+the result matrix.
 """
 
 from __future__ import annotations
@@ -33,9 +34,9 @@ from ..ops.similarity import (
     SimilarityConfig,
     UniformCosts,
 )
-from ..ops.myers_pallas import myers_pallas, pick_myers_lane_block
+from ..ops.myers import LANE_BLOCK, myers_distances
 from ..utils import native
-from ..ops.similarity_pallas import pick_lane_block, similarity_pallas
+from ..ops.similarity import score_batch
 from ..ops.tape import Tape, round_up
 from ..parallel.cross import sharded_myers, sharded_similarity
 from .device_scope import DeviceScope, default_device_scope
@@ -165,10 +166,10 @@ class _HostCollection:
 
 def _class_mapped_tape(dt, b2c):
     """Device tape whose blob bytes are pre-mapped through the 256-entry
-    byte→class LUT (one Pallas lane-gather pass over the whole blob).
-    Memoized on the device tape keyed by the LUT bytes, so repeated engine
-    calls over the same collection pay it once (tapes are immutable)."""
-    from ..ops.memory_pallas import lookup_transform
+    byte→class LUT (one gather pass over the whole blob). Memoized on the
+    device tape keyed by the LUT bytes, so repeated engine calls over the
+    same collection pay it once (tapes are immutable)."""
+    from ..ops.memory import lookup_transform
     from ..ops.pack_device import DeviceTape
 
     key = bytes(np.asarray(b2c, dtype=np.uint8))
@@ -178,12 +179,7 @@ def _class_mapped_tape(dt, b2c):
     hit = cache.get(key)
     if hit is not None:
         return hit
-    data = dt.data  # (N,) u8 device, already 4-byte tail padded
-    n = int(data.shape[0])
-    pad = (-n) % 128
-    d2 = (jnp.concatenate([data, jnp.zeros((pad,), data.dtype)])
-          if pad else data).reshape(-1, 128)
-    mapped = lookup_transform(d2, d2.shape[0], np.asarray(b2c)).reshape(-1)[:n]
+    mapped = lookup_transform(dt.data, np.asarray(b2c))
     out = DeviceTape(data=mapped, starts=dt.starts, lengths=dt.lengths)
     cache[key] = out
     return out
@@ -224,10 +220,9 @@ class _DeviceCollection:
         self._b2c = b2c
         self._lut = (jnp.asarray(np.asarray(b2c).astype(np.int32))
                      if b2c is not None else jnp.zeros(256, jnp.int32))
-        # Class-cost engines: byte→class map applied to the BLOB once via
-        # the Pallas lane-gather LUT (109 GB/s) — every subsequent per-call
-        # pack gathers pre-mapped bytes instead of paying a 256-entry XLA
-        # gather per element per call (which cost as much as the DP kernel).
+        # Class-cost engines: byte→class map applied to the BLOB once —
+        # every later per-call pack gathers pre-mapped bytes instead of
+        # paying a 256-entry gather per element per call.
         self._dt_packsrc = self._dt
         if b2c is not None and not utf8:
             self._dt_packsrc = _class_mapped_tape(self._dt, b2c)
@@ -334,11 +329,11 @@ class _CrossProductEngine:
 
     def _score_long_pairs(self, qc, cc, q_long, c_long, out, scope):
         """Every pair touching a long string runs on the anti-diagonal
-        wavefront kernel (one kernel launch per pair — the intra-pair tier).
-        Pairs whose diagonal exceeds one chip's VMEM reach
-        (``MAX_FLAT_CELLS``) route to the cross-chip ring tier when the
-        scope holds a multi-device mesh — the reference's GPU
-        ``row_frontier`` pattern over ICI (``cuda.cuh:708-749``).
+        wavefront (one device program per pair — the intra-pair tier).
+        Pairs whose diagonal exceeds ``RING_MIN_CELLS`` route to the
+        cross-device ring tier when the scope holds a multi-device mesh —
+        the reference's GPU ``row_frontier`` pattern
+        (``cuda.cuh:708-749``).
         Class-cost engines pass the 32x32 table (inputs are already
         class-mapped); uniform engines pass match/mismatch.
 
@@ -349,9 +344,7 @@ class _CrossProductEngine:
         near-duplicate long-pair workload (the reference's analog is its
         bounded Levenshtein mode + the CUDA live-tile walk,
         ``cuda.cuh:708-749``)."""
-        from ..ops.wavefront_pallas import (MAX_FLAT_CELLS,
-                                            levenshtein_long_pair,
-                                            wavefront_score)
+        from ..ops import wavefront
         from ..parallel.ring import ring_wavefront_score
 
         cfg = self._cfg
@@ -379,7 +372,7 @@ class _CrossProductEngine:
                     c = (q_cache[j] if cc is qc and j in q_cache
                          else cc.array(j))
                     c_cache[j] = c
-                if (max(len(q) + 1, len(c)) > MAX_FLAT_CELLS
+                if (max(len(q) + 1, len(c)) > wavefront.RING_MIN_CELLS
                         and scope.device_count > 1):
                     rkw = dict(kw)
                     rkw.setdefault("match", 0)
@@ -388,9 +381,9 @@ class _CrossProductEngine:
                         q, c, scope.mesh, gap=gap, objective=cfg.objective,
                         locality=cfg.locality, **rkw)
                 elif self._is_unit_cost:
-                    out[i, j] = levenshtein_long_pair(q, c)
+                    out[i, j] = wavefront.levenshtein_long_pair(q, c)
                 else:
-                    out[i, j] = wavefront_score(
+                    out[i, j] = wavefront.wavefront_score(
                         q, c, gap=gap, objective=cfg.objective,
                         locality=cfg.locality, **kw)
 
@@ -417,8 +410,8 @@ class _CrossProductEngine:
         ndev = scope.device_count
         use_myers = self._is_unit_cost and int(q_lens.max()) > 0
 
-        # Long-pair tier: strings beyond the lane-packed kernels' VMEM reach
-        # route pair-by-pair to the anti-diagonal wavefront — the analog of
+        # Long-pair tier: strings beyond the lane-packed tiers' reach route
+        # pair-by-pair to the anti-diagonal wavefront — the analog of
         # the reference's intra-pair large tier (``cross_in_parallel_``,
         # serial.hpp:3334-3345).
         q_long = q_lens > _LONG_THRESHOLD
@@ -434,13 +427,7 @@ class _CrossProductEngine:
                 c_idx = c_idx[~c_long[c_idx]]
                 if c_idx.size == 0:
                     continue
-            if use_myers:
-                words_hint = max(-(-_dyadic(int(q_lens.max())) // 32), 1)
-                lane_block = pick_myers_lane_block(words_hint, c_bucket)
-            else:
-                rows_hint = _dyadic(int(q_lens.max())) + 8
-                lane_block = pick_lane_block(rows_hint, c_bucket)
-            count_multiple = lane_block * ndev
+            count_multiple = LANE_BLOCK * ndev
             block_j, lens_j = cc.pack_candidates(c_idx, c_bucket, count_multiple)
             for q_bucket, q_idx in _group_dyadic(q_lens).items():
                 if has_long:
@@ -452,13 +439,11 @@ class _CrossProductEngine:
                     q_t, qlens = qc.pack_queries_myers(q_idx, rows)
                     if ndev > 1:
                         res = sharded_myers(
-                            q_t, qlens, block_j,
-                            lens_j, scope.mesh, lane_block=lane_block,
+                            q_t, qlens, block_j, lens_j, scope.mesh,
                             alphabet=None if self._utf8 else 256)
                     else:
-                        res = myers_pallas(
-                            q_t, qlens, block_j,
-                            lens_j, lane_block=lane_block,
+                        res = myers_distances(
+                            q_t, qlens, block_j, lens_j,
                             alphabet=None if self._utf8 else 256)
                 else:
                     rows = round_up(q_bucket + 1, 8)
@@ -466,14 +451,10 @@ class _CrossProductEngine:
                     if ndev > 1:
                         res = sharded_similarity(
                             q_ext_t, qlens, block_j, lens_j,
-                            self._cfg, scope.mesh, table=self._table,
-                            lane_block=lane_block,
-                        )
+                            self._cfg, scope.mesh, table=self._table)
                     else:
-                        res = similarity_pallas(
-                            q_ext_t, qlens, block_j, lens_j,
-                            self._cfg, table=self._table, lane_block=lane_block,
-                        )
+                        res = score_batch(q_ext_t, qlens, block_j, lens_j,
+                                          self._cfg, table=self._table)
                 # slice to true counts ON DEVICE — the dyadic lane padding
                 # must not inflate the host pull
                 res = np.asarray(res[: len(q_idx), : len(c_idx)])

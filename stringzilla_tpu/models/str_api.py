@@ -5,11 +5,12 @@ Mirrors the reference's Python binding surface (``python/stringzilla.c``:
 module-level find/count/split/translate/hash functions,
 ``python/stringzilla.c:9531-9612``), re-designed for a device-first runtime:
 
-* a ``Str`` owns one host buffer and lazily mirrors it to the TPU as a
-  ``(rows, 128)`` u8 array (the layout ``ops.find_pallas`` consumes);
-* search ops dispatch on size: big buffers run the streaming Pallas kernels
-  on-device (the role of the reference's AVX-512/SVE tiers), small ones run
-  on host (the "serial" tier) — the dispatch-registry analog of the
+* a ``Str`` owns one host buffer and lazily mirrors it to the GPU as a
+  ``(rows, 128)`` u8 array (the layout ``ops.find.search_positions``
+  consumes);
+* search ops dispatch on size: big buffers run fused XLA passes on the
+  device (the role of the reference's AVX-512/SVE tiers), small ones run on
+  host (the "serial" tier) — the dispatch-registry analog of the
   reference's ``sz_dispatch_table`` (``c/stringzilla/dispatch.h:34-109``);
 * ``split``/``splitlines`` return ``Strs`` views backed by (data, offsets)
   tapes — zero copies of the underlying bytes, like the reference's
@@ -137,7 +138,7 @@ class Str:
         """Lazily build the padded (rows, 128) u8 device mirror."""
         import jax.numpy as jnp
 
-        from ..ops.find_pallas import BLOCK_ROWS, LANES
+        from ..ops.find import BLOCK_ROWS, LANES
 
         if self._device_2d is None:
             from ..ops.tape import ladder
@@ -154,7 +155,7 @@ class Str:
         return self._device_2d
 
     def _use_device(self) -> bool:
-        return len(self) >= _DEVICE_MIN_BYTES and not platform.pallas_interpret()
+        return len(self) >= _DEVICE_MIN_BYTES and platform.backend() == "gpu"
 
     # -- search --------------------------------------------------------------
 
@@ -167,7 +168,7 @@ class Str:
         if start < 0 or end < 0:  # normalize negative bounds like Python
             start, end, _ = slice(start, end).indices(n)
         if self._use_device():
-            from ..ops.find_pallas import MAX_OFFSETS, find_long, search_positions
+            from ..ops.find import MAX_OFFSETS, find_long, search_positions
 
             if len(nd) == 0:
                 return start if start <= end else -1
@@ -188,7 +189,7 @@ class Str:
         if start < 0 or end < 0:
             start, end, _ = slice(start, end).indices(n)
         if self._use_device():
-            from ..ops.find_pallas import MAX_OFFSETS, find_long, search_positions
+            from ..ops.find import MAX_OFFSETS, find_long, search_positions
 
             if len(nd) == 0:
                 return end
@@ -222,7 +223,7 @@ class Str:
         if len(nd) == 0:
             return n + 1
         if self._use_device() and len(nd) <= 16 and allowoverlap:
-            from ..ops.find_pallas import search_positions
+            from ..ops.find import search_positions
 
             return int(search_positions(self._device(), n, "count",
                                         needle=np.frombuffer(nd, dtype=np.uint8)))
@@ -245,7 +246,7 @@ class Str:
         """Occurrences of ANY byte of the set (binding ``Str.count_byteset``)."""
         if self._use_device():
             from ..ops.find import byteset_mask
-            from ..ops.find_pallas import search_positions
+            from ..ops.find import search_positions
 
             ws = byteset_mask(_needle_bytes(charset))
             return int(search_positions(self._device(), len(self), "count",
@@ -323,7 +324,7 @@ class Str:
         if invert:
             words = ~words
         if self._use_device():
-            from ..ops.find_pallas import search_positions
+            from ..ops.find import search_positions
 
             return int(search_positions(self._device(), len(self), mode,
                                         byteset_words=words))
@@ -540,9 +541,9 @@ class Str:
         if lut.shape[0] != 256:
             raise ValueError("translate table must be exactly 256 bytes")
         if self._use_device():
-            from ..ops.memory_pallas import lookup_transform
+            from ..ops.memory import lookup_transform
 
-            out = lookup_transform(self._device(), len(self), lut)
+            out = lookup_transform(self._device(), lut)
             return Str(np.asarray(out).reshape(-1)[: len(self)])
         return Str(lut[self._buf])
 
@@ -747,13 +748,11 @@ class Str:
     def _device_folded_2d(self):
         """Cached ASCII-case-folded device mirror (256-LUT transform)."""
         if self._device_folded is None:
-            from ..ops.memory_pallas import lookup_transform
+            from ..ops.memory import lookup_transform
 
             lut = np.arange(256, dtype=np.uint8)
             lut[65:91] += 32
-            h = self._device()
-            self._device_folded = lookup_transform(
-                h, int(h.shape[0]) * h.shape[1], lut)
+            self._device_folded = lookup_transform(self._device(), lut)
         return self._device_folded
 
     # -- order ----------------------------------------------------------------
@@ -949,8 +948,8 @@ class Strs:
                                  self._ends, seed)
         if out is not None:
             return out
-        if len(self) >= (1 << 14) and not platform.pallas_interpret():
-            from ..ops.hash_pallas import hash_bounds_device
+        if len(self) >= (1 << 14) and platform.backend() == "gpu":
+            from ..ops.hash_device import hash_bounds_device
 
             return hash_bounds_device(self._parent._buf, self._starts,
                                       self._ends, seed)

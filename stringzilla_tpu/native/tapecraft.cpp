@@ -1,11 +1,11 @@
 // tapecraft — native host runtime for stringzilla_tpu.
 //
-// The TPU kernels consume dense, padded, lane-aligned blocks; everything the
+// The device kernels consume dense, padded, lane-aligned blocks; everything the
 // device cannot do — ragged→dense packing, corpus tokenization, sort-key
 // export — is host work on the critical path of every engine call. The
 // reference keeps this layer native too (its CPython bindings and ForkUnion
 // runtime are C/C++; see reference c/stringzillas/runtime.cpp,
-// python/stringzilla.c). This is the TPU build's equivalent: a small C++17
+// python/stringzilla.c). This is this package's equivalent: a small C++17
 // shared library driven through ctypes (no pybind11 in the image).
 //
 // All functions are plain-C ABI and operate on caller-owned buffers.

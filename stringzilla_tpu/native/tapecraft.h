@@ -14,7 +14,7 @@
  *  Scope: the HOST side of the framework — ragged→dense tape packing,
  *  tokenization, sort-key export, UTF-8 decode/encode, Unicode case
  *  folding and case-insensitive search.  The batch/device side (edit
- *  distances, fingerprints, exact search, hashing on TPU) is reached
+ *  distances, fingerprints, exact search, hashing on the GPU) is reached
  *  through the Python engine API, which is the stable surface for
  *  device work (a C ABI cannot usefully wrap a JAX/XLA runtime).
  *

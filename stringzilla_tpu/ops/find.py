@@ -1,14 +1,14 @@
 """Exact substring & byteset search — device-resident, XLA-fused.
 
-TPU-native re-design of the reference's ``find`` domain (reference
+Re-design of the reference's ``find`` domain (reference
 ``include/stringzilla/find.h:43-431``): ``sz_find`` / ``sz_rfind`` /
 ``sz_find_byte`` / ``sz_find_byteset`` and counting.
 
 The reference picks needle-length-tiered kernels (SWAR 2/3/4-byte, Raita
 anomaly offsets + BMH skip tables, reference ``find/serial.h:35,449,637``)
-because a scalar CPU must *skip* work. A TPU wants the opposite shape: dense,
-branch-free compares over the whole block with the VPU, reduced with
-``argmax``/``sum``:
+because a scalar CPU must *skip* work. An accelerator wants the opposite
+shape: dense, branch-free compares over the whole buffer, fused by XLA into
+one streaming pass and reduced with ``min``/``max``/``sum``:
 
 * short needles (≤ ``_DENSE_NEEDLE_LIMIT``): ``match[p] = AND_a
   hay[p+a] == needle[a]`` — k shifted compares, fully fused by XLA into one
@@ -51,6 +51,8 @@ __all__ = [
     "rfind_byteset",
     "byteset_mask",
     "match_mask",
+    "search_positions",
+    "find_long",
 ]
 
 _DENSE_NEEDLE_LIMIT = 64  # dense shifted-compare tier bound
@@ -106,7 +108,7 @@ def byteset_mask(charset) -> np.ndarray:
 @partial(jax.jit, static_argnames=("k",))
 def _dense_match_mask(hay: jnp.ndarray, n, needle_arr: jnp.ndarray, k: int) -> jnp.ndarray:
     """``mask[p] = hay[p:p+k] == needle`` — k shifted compares fused by XLA
-    into one streaming VPU pass. Needle chars are runtime scalars, so new
+    into one streaming pass. Needle chars are runtime scalars, so new
     needles of the same length reuse the executable."""
     h = hay.astype(jnp.int32)
     nd = needle_arr.astype(jnp.int32)
@@ -313,3 +315,120 @@ def rfind_byteset(haystack, charset) -> int:
     if n == 0:
         return -1
     return int(_last_true(_byteset_hits(hay, n, jnp.asarray(byteset_mask(charset)))))
+
+
+# ---------------------------------------------------------------------------
+# Search over a device mirror — the ``Str`` device tier
+# ---------------------------------------------------------------------------
+#
+# ``Str`` mirrors big buffers to the device as a ``(rows, 128)`` u8 array.
+# One jitted pass per (mode, needle length) compares every start position
+# at once: needles <= MAX_OFFSETS bytes compare in full (exact); longer
+# needles are *filtered* on <= MAX_OFFSETS anomaly bytes and the rare
+# surviving candidates verified exactly (``find_long``).
+
+LANES = 128
+BLOCK_ROWS = 1024  # mirror padding granularity: 128 KiB
+MAX_OFFSETS = 16  # compared needle bytes per pass
+_NOT_FOUND = 2**31 - 1
+
+
+@partial(jax.jit, static_argnames=("mode", "offsets"))
+def _search(hay2d, params, bounds, *, mode: str, offsets: tuple):
+    """``offsets=()`` probes the 256-bit byteset in ``params``; otherwise
+    ``params[s]`` must equal ``hay[p + offsets[s]]`` for every slot."""
+    h = hay2d.reshape(-1).astype(jnp.int32)
+    N = h.shape[0]
+    if offsets:
+        mask = None
+        for slot, a in enumerate(offsets):
+            shifted = h if a == 0 else jnp.concatenate(
+                [h[a:], jnp.zeros((a,), jnp.int32)])
+            eq = shifted == params[slot]
+            mask = eq if mask is None else mask & eq
+    else:
+        word = jnp.zeros(h.shape, jnp.int32)
+        for w in range(8):
+            word = jnp.where((h >> 5) == w, params[w], word)
+        mask = ((word >> (h & 31)) & 1) == 1
+    pos = jnp.arange(N, dtype=jnp.int32)
+    valid = mask & (pos >= bounds[0]) & (pos <= bounds[1])
+    if mode == "first":
+        r = jnp.min(jnp.where(valid, pos, _NOT_FOUND))
+        return jnp.where(r == _NOT_FOUND, -1, r)
+    if mode == "last":
+        return jnp.max(jnp.where(valid, pos, -1))
+    return jnp.sum(valid.astype(jnp.int32))
+
+
+def _anomaly_offsets(k: int) -> tuple:
+    """<= MAX_OFFSETS distinguishing byte offsets for a k-byte needle: the
+    first/middle/last 4-byte words plus spread extras (the reference picks 3
+    "anomaly" chars, ``find/serial.h:35``)."""
+    reach = k - 1
+    offs = set(range(min(k, 4)))
+    offs |= {reach - 3 + b for b in range(4) if reach - 3 + b >= 0}
+    mid = (reach // 2) & ~3
+    offs |= {mid + b for b in range(4) if mid + b <= reach}
+    step = max(reach // 4, 1)
+    probe = step
+    while len(offs) < MAX_OFFSETS and probe < reach:
+        offs.add(probe)
+        probe += step
+    return tuple(sorted(offs)[:MAX_OFFSETS])
+
+
+def search_positions(
+    hay2d: jnp.ndarray,  # (rows, 128) uint8 device mirror
+    n: int,  # true byte length
+    mode: str,  # first | last | count
+    needle: np.ndarray | None = None,  # (k,) uint8
+    byteset_words: np.ndarray | None = None,  # (8,) uint32
+    lo: int = 0,
+    hi: int | None = None,
+) -> jnp.ndarray:
+    """Search over valid start positions in ``[lo, hi]``.
+
+    Exact for needles <= MAX_OFFSETS bytes and for bytesets; longer needles
+    get the *candidate* semantics (possible false positives) — use
+    ``find_long``. Returns () int32: position, -1, or count."""
+    if needle is not None:
+        k = int(needle.shape[0])
+        offsets = tuple(range(k)) if k <= MAX_OFFSETS else _anomaly_offsets(k)
+        params = np.array([needle[a] for a in offsets], dtype=np.int32)
+    else:
+        k = 1
+        offsets = ()
+        params = np.asarray(byteset_words, dtype=np.uint32).view(np.int32)
+    hi = n - k if hi is None else min(hi, n - k)
+    bounds = np.array([lo, hi], dtype=np.int32)
+    return _search(hay2d, jnp.asarray(params), jnp.asarray(bounds),
+                   mode=mode, offsets=offsets)
+
+
+@partial(jax.jit, static_argnames=("k",))
+def _verify_window(hay2d, p, needle, k: int):
+    """Exact k-byte compare of hay2d[p : p+k] (flat) vs needle."""
+    window = jax.lax.dynamic_slice_in_dim(hay2d.reshape(-1), p, k)
+    return jnp.all(window == needle)
+
+
+def find_long(hay2d: jnp.ndarray, n: int, needle: np.ndarray,
+              reverse: bool = False) -> int:
+    """Exact first/last match for needles longer than MAX_OFFSETS: anomaly
+    filter + per-candidate exact verification (expected 1 round)."""
+    k = int(needle.shape[0])
+    nd = jnp.asarray(needle)
+    lo, hi = 0, n - k
+    while lo <= hi:
+        cand = int(search_positions(hay2d, n, "last" if reverse else "first",
+                                    needle=needle, lo=lo, hi=hi))
+        if cand < 0:
+            return -1
+        if bool(_verify_window(hay2d, jnp.int32(cand), nd, k)):
+            return cand
+        if reverse:
+            hi = cand - 1
+        else:
+            lo = cand + 1
+    return -1

@@ -21,12 +21,17 @@ Dimension→window-width mapping mirrors ``szs_fingerprints_init`` (reference
 otherwise dimension ``d`` takes ``widths[d % len]`` (interleaved fallback).
 
 The oracle here computes in integer-exact NumPy f64 — bit-identical to the C
-engines. The TPU kernel (``fingerprints_pallas.py``) reproduces the same values
-with 16-bit-limb integer arithmetic, validated against this oracle.
+engines. The device form (:func:`fingerprint_all_groups`) reproduces the same
+values in int32 limb arithmetic, validated against this oracle and the golden
+vectors.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 __all__ = [
@@ -34,7 +39,9 @@ __all__ = [
     "MODULO_BASE",
     "band_keys",
     "derive_params",
+    "fingerprint_all_groups",
     "fingerprint_oracle",
+    "pack_limbs",
     "splitmix64",
 ]
 
@@ -266,3 +273,116 @@ def buz_rolling_hash(doc: bytes, window: int, seed: int = 0) -> np.ndarray:
                      ^ table[data[t]])
             out[t - window + 1] = state
     return out
+
+
+# ---------------------------------------------------------------------------
+# Device form — exact 52-bit modular arithmetic in int32 limbs
+# ---------------------------------------------------------------------------
+#
+# The reference's hasher only ever manipulates *integers* below 2^52, and its
+# moduli sit just past 2^42 (``default_modulo_base_k``, serial.hpp:1247). The
+# state is held exactly in TWO int32 limbs — (low 21 bits, open-ended rest) —
+# chosen so every product stays inside int32:
+#
+# * ``s0*mult <= (2^21-1)*639 ~ 1.34e9`` and the top limb
+#   ``s1 <= m>>21 ~ 2147484`` gives ``s1*mult ~ 1.37e9``;
+# * the fused roll ``x = state*mult + fused_disc*old_term + new_term`` needs
+#   no third limb: the open-ended ``p1`` carries ``x = p1*2^21 + p0 < 2^52``;
+# * Barrett reduction with an f32 quotient *estimate* and exact integer
+#   correction: ``q ~ floor(x * 1/m)`` may be off by one either way
+#   (``q*m1 <= 897*2147484 < 2^31``), so one conditional ``+m`` and one
+#   conditional ``-m`` pin ``r = x mod m`` exactly, whatever rounding the
+#   estimate took (a fused multiply-add only makes it closer);
+# * the running minimum is tracked lexicographically over the limb pair and
+#   truncated to u32 on export (``serial.hpp:1284-1293``).
+
+LIMB = 21
+MASK = (1 << LIMB) - 1
+SENTINEL_HI = 1 << 22  # valid top limbs are <= ~2^21.04
+
+
+def pack_limbs(values: np.ndarray) -> np.ndarray:
+    """int64 (G,) → (2, G) int32 limbs (low 21 bits, open-ended rest)."""
+    v = np.asarray(values, dtype=np.int64)
+    return np.stack([(v & MASK).astype(np.int32), (v >> LIMB).astype(np.int32)])
+
+
+@partial(jax.jit, static_argnames=("group_sizes",))
+def _fingerprint_all_groups(docs_t, lens, widths, mult, m_limbs, fd_limbs,
+                            inv_m, group_sizes: tuple):
+    doc_len, n_docs = docs_t.shape
+    dims = mult.shape[0]
+    terms = docs_t.astype(jnp.int32) + 1  # byte terms (+1)
+    m0, m1 = m_limbs[0], m_limbs[1]
+    f0, f1 = fd_limbs[0], fd_limbs[1]
+    wrow = jnp.concatenate([jnp.full((sz, 1), widths[0, g], jnp.int32)
+                            for g, sz in enumerate(group_sizes)], axis=0)
+    zeros = jnp.zeros((dims, n_docs), jnp.int32)
+    init = (zeros, zeros, zeros,
+            jnp.full((dims, n_docs), SENTINEL_HI, jnp.int32), zeros)
+
+    def body(carry, t):
+        s0, s1, mn0, mn1, count = carry
+        term = terms[t][None, :]
+        # discarded term per group: zero while the window still fills
+        # (t < w), turning the fused roll into a plain push
+        old_term = jnp.concatenate([
+            jnp.broadcast_to(jnp.where(t >= widths[0, g],
+                                       terms[jnp.maximum(t - widths[0, g], 0)],
+                                       0)[None, :], (sz, n_docs))
+            for g, sz in enumerate(group_sizes)], axis=0)
+        p0 = s0 * mult + f0 * old_term + term
+        p1 = s1 * mult + f1 * old_term
+        p1 += p0 >> LIMB
+        p0 &= MASK
+        xf = p1.astype(jnp.float32) * 2097152.0 + p0.astype(jnp.float32)
+        q = jnp.maximum(jnp.floor(xf * inv_m).astype(jnp.int32), 0)
+        r0 = p0 - q * m0
+        r1 = p1 - q * m1
+        r1 += r0 >> LIMB
+        r0 &= MASK
+        neg = r1 < 0
+        a0 = r0 + jnp.where(neg, m0, 0)
+        a1 = r1 + jnp.where(neg, m1, 0)
+        a1 += a0 >> LIMB
+        a0 &= MASK
+        ge = (a1 > m1) | ((a1 == m1) & (a0 >= m0))
+        s0 = a0 - jnp.where(ge, m0, 0)
+        s1 = a1 - jnp.where(ge, m1, 0)
+        s1 += s0 >> LIMB
+        s0 &= MASK
+        # a row's hash is a full-window value from t = w-1 onward; docs
+        # shorter than the window never update
+        upd = (t >= wrow - 1) & (t < lens)
+        lt = (s1 < mn1) | ((s1 == mn1) & (s0 < mn0))
+        eq = (s1 == mn1) & (s0 == mn0)
+        count = jnp.where(upd & lt, 1, jnp.where(upd & eq, count + 1, count))
+        take = upd & lt
+        return (s0, s1, jnp.where(take, s0, mn0), jnp.where(take, s1, mn1),
+                count), None
+
+    (_, _, mn0, mn1, count), _ = jax.lax.scan(
+        body, init, jnp.arange(doc_len, dtype=jnp.int32))
+    skipped = mn1 >= SENTINEL_HI
+    hash32 = (mn1 << LIMB) | mn0  # low 32 bits of the ~42-bit minimum
+    return (jnp.where(skipped, jnp.int32(-1), hash32),
+            jnp.where(skipped, 0, count))
+
+
+def fingerprint_all_groups(
+    docs_t,  # (doc_len, n_docs) int32/uint8 — docs across lanes
+    lens,  # (1, n_docs) int32
+    widths,  # (1, n_groups) int32 — per-group window widths
+    group_sizes: tuple,  # static: dims rows per width group, concat order
+    mult,  # (dims, 1) int32
+    m_limbs,  # (2, dims, 1) int32
+    fd_limbs,  # (2, dims, 1) int32
+    inv_m,  # (dims, 1) float32
+):
+    """MinHash + count-min for every dimension of every window width in one
+    pass over the document bytes. Returns ``(min_hash int32 (dims, n_docs),
+    counts int32 (dims, n_docs))``; min_hash bit patterns are the u32
+    hashes."""
+    return _fingerprint_all_groups(
+        docs_t, lens, widths, mult, m_limbs, fd_limbs, inv_m,
+        group_sizes=tuple(int(s) for s in group_sizes))

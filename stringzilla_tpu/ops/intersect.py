@@ -2,8 +2,8 @@
 
 The reference builds a seeded power-of-2 open-addressing hash table with a
 bounded collision budget (reference ``include/stringzilla/intersect.h:33-96``,
-``README.md:909-913``). Data-dependent probing is scalar-unit poison on TPU,
-so the TPU design is a **sort-merge join on hash keys**:
+``README.md:909-913``). Data-dependent probing serializes on a data-parallel device,
+so the design here is a **sort-merge join on hash keys**:
 
 1. every *distinct* string of both collections gets a 64-bit seeded
    StringZilla hash via the batched pipeline (``ops.hash.hash_batch`` /
@@ -98,8 +98,8 @@ def intersect(first, second, seed: int = 0):
     if len(a_strs) + len(b_strs) >= _DEVICE_MIN_ITEMS:
         from ..utils import platform
 
-        if platform.on_tpu():
-            from .hash_pallas import hash_batch_device
+        if platform.backend() == "gpu":
+            from .hash_device import hash_batch_device
 
             hasher = hash_batch_device
     a_hash = hasher(a_strs, seed)

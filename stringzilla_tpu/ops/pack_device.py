@@ -16,7 +16,7 @@ pulling results.
 Layouts produced (matching ``utils/native.pack_u8 / pack_i32``):
 
 * ``transpose=False`` → ``(count, row_len)`` — row-major documents;
-* ``transpose=True``  → ``(row_len, count)`` — characters down sublanes,
+* ``transpose=True``  → ``(row_len, count)`` — characters down rows,
   documents across lanes (what the Pallas kernels consume).
 """
 
@@ -36,10 +36,9 @@ __all__ = ["DeviceTape", "device_tape", "pack_on_device"]
 def _gather_rows(blob, offs, row_len: int):
     """``(count, row_len) int32`` byte values of contiguous ``blob`` runs.
 
-    XLA's TPU gather costs tens of cycles PER ELEMENT, and strings are
+    Element gathers are costly per element, and strings are
     contiguous runs — so gather 4-byte WORDS (4× fewer gathers) and
-    reassemble each unaligned row with two shifts. Measured 18-46 ms → ~2 ms
-    for a 512×1 KiB pack. Exact for any byte alignment; rows past a string's
+    reassemble each unaligned row with two shifts. Exact for any byte alignment; rows past a string's
     end read garbage the caller masks (the blob's 4-byte tail pad keeps the
     word reads in bounds; OOB word indices clip)."""
     nw = row_len // 4
@@ -137,7 +136,7 @@ def pack_chars(blob, offs, lens, lut, *, row_len: int, transpose: bool,
                fill: int, shift: bool = False, use_lut: bool = False):
     """Dense char block for the DP engines: word gather + optional byte→class
     LUT (the ``error_costs_32x32_t`` class map; engines pre-map the BLOB once
-    per collection via the Pallas lane-gather LUT instead, reference
+    per collection via ``ops.memory.lookup_transform`` instead, reference
     ``serial.hpp:118-189``) + padding fill; ``shift`` prepends the zero
     row of the +1-shifted column-walk query layout."""
     j = jnp.arange(row_len, dtype=jnp.int32)

@@ -3,7 +3,7 @@
 The reference implements these as per-ISA scalar/SIMD automata over ~40K LoC
 of generated tables (reference ``include/stringzilla/utf8_wordbreaks/``,
 ``utf8_graphemes.h:37``, ``utf8_sentences.h``, ``utf8_linebreaks.h:41``).
-The TPU-framework design splits the work differently:
+The design here splits the work differently:
 
 * the native runtime decodes UTF-8 to rune + offset arrays
   (``tapecraft.cpp::tc_utf8_decode``);

@@ -3,9 +3,9 @@
 The reference implements SHA-256 per ISA tier with a streaming state struct
 (``sz_sha256_state_t``: init/update/digest, reference
 ``include/stringzilla/hash.h:244-300``) plus SHA-NI/NEON-crypto kernels. On
-TPU there is no crypto unit; the hot shape is the *batch*: thousands of
-documents hashed in parallel, rounds vectorized across a lanes axis on the
-VPU (the same layout as the aHash token kernel). Within one message SHA-256
+the device there is no crypto unit; the hot shape is the *batch*: thousands of
+documents hashed in parallel, rounds vectorized across a lanes axis (the same layout as the token
+hashes). Within one message SHA-256
 is strictly sequential by construction, so the single-stream tier is an
 exact numpy implementation of the compression function; throughput comes
 from ``sha256_batch`` which runs one round for *all* messages per step.
@@ -152,42 +152,18 @@ def sha256(data: bytes) -> bytes:
 # ---------------------------------------------------------------------------
 
 
-def _jit_batch(unrolled: bool):
-    """Compression over the lanes (message) axis.
-
-    On TPU the 48 schedule-expansion and 64 round steps are fully unrolled
-    (pure dataflow): the scan-based formulation shuffled a 16-word ring
-    through memory every step and ran 6× slower on chip. Only the *block*
-    axis stays a ``lax.scan`` so long messages don't blow up the HLO. The
-    XLA **CPU** backend is the opposite — it takes minutes to compile the
-    unrolled body but handles the compact scans instantly — so the
-    interpreter/test tier keeps the scan formulation (``unrolled=False``).
-    """
+@functools.lru_cache(maxsize=1)
+def _jit_batch():
+    """Compression over the lanes (message) axis: the 48 schedule-expansion
+    and 64 round steps and the block axis are each a ``lax.scan``. (A fully
+    unrolled form compiles for minutes and runs slower on the GPU.)"""
     import jax
     import jax.numpy as jnp
 
     def rotr(x, k):
         return (x >> np.uint32(k)) | (x << np.uint32(32 - k))
 
-    K = [np.uint32(int(k)) for k in _K]
     k_col = jnp.asarray(_K)[:, None]  # (64, 1)
-
-    def block_step_unrolled(st, blk):  # blk (16, G)
-        W = [blk[t] for t in range(16)]
-        for t in range(16, 64):
-            s0 = rotr(W[t - 15], 7) ^ rotr(W[t - 15], 18) ^ (W[t - 15] >> np.uint32(3))
-            s1 = rotr(W[t - 2], 17) ^ rotr(W[t - 2], 19) ^ (W[t - 2] >> np.uint32(10))
-            W.append(W[t - 16] + s0 + W[t - 7] + s1)
-        a, b, c, d, e, f, g, h = st
-        for t in range(64):
-            S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)
-            ch = (e & f) ^ (~e & g)
-            t1 = h + S1 + ch + K[t] + W[t]
-            S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)
-            maj = (a & b) ^ (a & c) ^ (b & c)
-            a, b, c, d, e, f, g, h = t1 + S0 + maj, a, b, c, d + t1, e, f, g
-        return tuple(x + y for x, y in
-                     zip(st, (a, b, c, d, e, f, g, h))), None
 
     def block_step_scan(st, blk):  # blk (16, G)
         def expand_step(ring, _):
@@ -212,28 +188,17 @@ def _jit_batch(unrolled: bool):
         return tuple(x + y for x, y in zip(st, out)), None
 
     def run(words):  # (n_blocks, 16, G) uint32
-        nb, _, G = words.shape
+        G = words.shape[2]
         state0 = tuple(jnp.broadcast_to(jnp.uint32(int(h)), (G,))
                        for h in _H0)
-        if unrolled and nb <= 8:
-            # fully static block loop: wrapping the unrolled body in a scan
-            # also stalls the TPU compiler, so short messages (≤512 B — the
-            # token-hashing hot shape) unroll end to end
-            st = state0
-            for i in range(nb):
-                st, _ = block_step_unrolled(st, words[i])
-            return jnp.stack(st, 0)
         state, _ = jax.lax.scan(block_step_scan, state0, words)
         return jnp.stack(state, 0)  # (8, G)
 
     return jax.jit(run)
 
 
-_BATCH_CACHE: dict[int, object] = {}
-
-
 @functools.lru_cache(maxsize=64)
-def _jit_tape_batch(n_blocks: int, unrolled: bool):
+def _jit_tape_batch(n_blocks: int):
     """End-to-end device program for one block-count bucket: gather message
     bytes from the resident blob, apply the FIPS 180-4 padding (0x80 marker
     + big-endian bit length) and big-endian word packing *on device*, then
@@ -241,7 +206,7 @@ def _jit_tape_batch(n_blocks: int, unrolled: bool):
     import jax
     import jax.numpy as jnp
 
-    inner = _jit_batch(unrolled)
+    inner = _jit_batch()
     L = n_blocks * 64
 
     def run(blob, offs, lens):  # offs/lens int32[lanes]
@@ -254,7 +219,7 @@ def _jit_tape_batch(n_blocks: int, unrolled: bool):
         b = jnp.where(valid, b.astype(jnp.uint32), jnp.uint32(0))
         b = jnp.where(j[None, :] == lens[:, None], jnp.uint32(0x80), b)
         # big-endian 64-bit bit length in the last 8 bytes (hi/lo u32 halves
-        # — no u64 lanes on TPU; messages are < 2^28 bytes by construction)
+        # — the lanes stay 32-bit; messages are < 2^28 bytes by construction)
         bits_lo = (lens.astype(jnp.uint32)) << jnp.uint32(3)
         bits_hi = (lens.astype(jnp.uint32)) >> jnp.uint32(29)
         k = j - (L - 8)
@@ -285,7 +250,6 @@ def sha256_tape(tape, indices: np.ndarray | None = None) -> np.ndarray:
     raw bytes up once, padding/packing/rounds on device, 32 B per digest
     back. Reference contract: ``sz_sha256_state_*`` (``hash.h:283-300``)
     applied per collection element."""
-    from ..utils import platform
     from .pack_device import device_tape
 
     dt = device_tape(tape)
@@ -299,14 +263,13 @@ def sha256_tape(tape, indices: np.ndarray | None = None) -> np.ndarray:
     if int(all_lens.max()) >= _TAPE_MAX_LEN:
         raise ValueError("sha256_tape: messages must be < 256 MB")
     blocks = (all_lens + 8) // 64 + 1
-    unrolled = platform.on_tpu()
     pending = []
     for n_blocks in np.unique(blocks):
         rows = np.nonzero(blocks == n_blocks)[0]
         G = len(rows)
         lanes = max(128, 1 << (G - 1).bit_length())
         offs, lens = dt.bucket_arrays(indices[rows], lanes)
-        fn = _jit_tape_batch(int(n_blocks), unrolled)
+        fn = _jit_tape_batch(int(n_blocks))
         pending.append((rows, G, fn(dt.data, offs, lens)))
     for rows, G, digests in pending:
         d = np.asarray(digests)[:, :G]  # (8, G) uint32
@@ -318,7 +281,7 @@ def sha256_tape(tape, indices: np.ndarray | None = None) -> np.ndarray:
 def sha256_batch(items) -> np.ndarray:
     """SHA-256 digests of a collection, shape ``(n, 32) uint8``. Messages
     are grouped by padded block count; each group's gather + FIPS padding +
-    rounds run as one device program across the lane axis (the TPU analog
+    rounds run as one device program across the lane axis (the counterpart
     of the reference's thread-pool batch hashing in ``szs``).
 
     Dispatch: host-resident bytes go through the native (SHA-NI) host tier

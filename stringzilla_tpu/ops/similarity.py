@@ -1,13 +1,14 @@
-"""Batched sequence-similarity DP — shared math for oracle and Pallas kernels.
+"""Batched sequence-similarity DP — the lane-packed column walk.
 
-This module is the TPU-native re-imagination of the reference's similarity
-engines (``include/stringzillas/similarities/serial.hpp``). The reference walks
-the DP matrix anti-diagonally with per-ISA SIMD ``tile_scorer`` specializations
-(reference ``serial.hpp:496-511``); here we use a **lane-packed column walk**:
+Re-design of the reference's similarity engines
+(``include/stringzillas/similarities/serial.hpp``). The reference walks the DP
+matrix anti-diagonally with per-ISA SIMD ``tile_scorer`` specializations
+(reference ``serial.hpp:496-511``); here the walk is **lane-packed by
+columns**:
 
-* candidates are packed across the VPU's 128 lanes (one candidate per lane, the
-  analog of ``candidate_lane_walker``, reference ``serial.hpp:599-613``);
-* one query is shared by the whole block and laid down the sublane axis;
+* candidates are packed across lanes (one candidate per lane, the analog of
+  ``candidate_lane_walker``, reference ``serial.hpp:599-613``);
+* one query is shared by the whole block and laid down the row axis;
 * the DP advances one *candidate character* per step, updating a whole
   ``(rows, lanes)`` column tile of cells at once;
 * the sequential within-column dependency ``new[i] = opt(a[i], new[i-1] + gap)``
@@ -16,22 +17,23 @@ the DP matrix anti-diagonally with per-ISA SIMD ``tile_scorer`` specializations
       new[i] = opt_{k<=i} ( a[k] + gap * (i - k) )
              = cum_opt( a - gap*iota )[i] + gap*i
 
-  computed with O(log rows) shift+opt passes — every step is a dense vector op
-  on the 8x128 VPU with zero scalar work.
+  computed with O(log rows) shift+opt passes — every step is dense
+  elementwise work that XLA fuses.
 
 Exact recurrences, boundary values, and the local-alignment clamp mirror the
 reference ``tile_scorer`` specializations bit-for-bit (global linear:
 ``serial.hpp:853-969``; local linear: ``:971-1089``; global affine (Gotoh):
-``:1091-1238``; local affine: ``:1240-1386``). All arithmetic is exact int32,
-so results are bit-identical to the C reference for any backend.
+``:1091-1238``; local affine: ``:1240-1386``). All arithmetic is exact int32.
 
 The 32x32 class-cost substitution (``error_costs_32x32_t``,
-``serial.hpp:118-189``) is lowered to one-hot matmuls on the MXU: the per-query
-cost slice ``Sq = onehot(q_class) @ table`` is built once, and each step's cost
-column is ``Sq @ onehot(c_class_j)`` — the "substitution lookup as matmul" trick.
+``serial.hpp:118-189``) is two integer gathers: the per-query cost slice
+``Sq = table[q_class]`` is built once, and each step's cost column is
+``Sq[:, c_class_j]``.
 
-Shape conventions (shared verbatim between the jnp oracle and the Pallas kernel
-— Mosaic prefers >= 2D tiles, so everything is 2D):
+:func:`score_batch` scores a whole (queries x candidates) bucket in one jit,
+the queries batched with ``vmap`` over :func:`score_block`.
+
+Shape conventions (everything 2D):
 
 * ``q_ext``:  ``(rows, 1)``   query chars shifted down by one; row 0 unused
 * ``c_row``:  ``(1, lanes)``  current candidate character per lane
@@ -57,6 +59,7 @@ __all__ = [
     "AffineGaps",
     "SimilarityConfig",
     "score_block",
+    "score_batch",
     "BIG",
 ]
 
@@ -120,7 +123,7 @@ class AffineGaps:
 
 @dataclasses.dataclass(frozen=True)
 class SimilarityConfig:
-    """Static kernel configuration — one jit/Pallas specialization per value."""
+    """Static configuration — one jit specialization per value."""
 
     objective: Literal["min", "max"] = "min"
     locality: Literal["global", "local"] = "global"
@@ -153,14 +156,14 @@ class SimilarityConfig:
 
 
 def _shift_down(x: jnp.ndarray, d: int, fill) -> jnp.ndarray:
-    """``y[i] = x[i-d]`` along axis 0, filling rows ``< d``. Static shift →
-    lowers to a roll + select, dense on the VPU."""
+    """``y[i] = x[i-d]`` along axis 0, filling rows ``< d`` (static shift:
+    a roll + select)."""
     rolled = jnp.roll(x, d, axis=0)
     rows = jax.lax.broadcasted_iota(jnp.int32, x.shape, 0)
     return jnp.where(rows < d, fill, rolled)
 
 
-_SCAN_BLOCK = 64  # two-level scan block (sublane-aligned, A/B-tuned on v5e)
+_SCAN_BLOCK = 64  # two-level scan block
 
 
 def _cum_opt_down(t: jnp.ndarray, cfg: SimilarityConfig) -> jnp.ndarray:
@@ -172,8 +175,7 @@ def _cum_opt_down(t: jnp.ndarray, cfg: SimilarityConfig) -> jnp.ndarray:
     Tall tiles use a two-level blocked scan: log2(B) block-masked passes over
     the full tile, a doubling scan over the (rows/B, lanes) block-carry tile
     (~B× cheaper per pass), and one combine pass — ~7 full-tile passes at
-    rows=1024 instead of 11 (measured +8% on the whole protein-shape kernel;
-    block 8 LOSES because the carry tile is nearly as tall as the input)."""
+    rows=1024 instead of 11."""
     rows, lanes = t.shape
     B = _SCAN_BLOCK
     if rows <= 2 * B:
@@ -234,60 +236,20 @@ def _substitution_column(q_ext, c_row, cfg: SimilarityConfig, sq=None):
     """Cost column ``sub[i, lane] = cost(q[i-1], c_row[lane])`` of shape
     ``(rows, lanes)``. Row 0 is garbage (overwritten by the boundary)."""
     if cfg.uses_classes:
-        # One-hot matmul on the MXU: Sq is (rows, 32) f32 — the per-query cost
-        # slice; onehot(c_class_row) is (32, lanes). Costs |c| <= 127 and the
-        # one-hot selection keep the f32 contraction exact.
-        classes = jax.lax.broadcasted_iota(jnp.int32, (32, c_row.shape[1]), 0)
-        onehot = (classes == c_row.astype(jnp.int32)).astype(jnp.float32)
-        col = jax.lax.dot_general(
-            sq, onehot,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        return col.astype(jnp.int32)
+        # Integer gather from the per-query cost slice: sq is (rows, 32)
+        # int32, column c of it is the cost of class c against every row.
+        return jnp.take(sq, c_row.reshape(-1).astype(jnp.int32), axis=1)
     match, mismatch = cfg.costs.match, cfg.costs.mismatch
     eq = q_ext.astype(jnp.int32) == c_row.astype(jnp.int32)
     return jnp.where(eq, jnp.int32(match), jnp.int32(mismatch))
 
 
-def substitution_stripe(q_ext, c_flat, cfg: SimilarityConfig, sq=None):
-    """Substitution costs for a stripe of T candidate characters at once:
-    ``(1, T*lanes) -> (rows, T*lanes)``, column t's slice at ``[:, t*lanes:]``.
-
-    ``c_flat`` is the T candidate rows pre-concatenated along lanes (the
-    caller builds it from lane-aligned (1, lanes) pieces — Mosaic crashes on
-    sublane-unaligned reshapes/extracts of a (T, lanes) value, so the flat
-    layout must be assembled from aligned loads, never reshaped in-kernel).
-
-    One MXU matmul per stripe instead of per column amortizes the one-hot
-    contraction (N = T·lanes ≈ 1024 utilizes the systolic array far better
-    than N = 128) and unrolls the DP loop T× for VLIW scheduling overlap —
-    measured +24% together with the blocked scan at the protein shape."""
-    n_flat = c_flat.shape[1]
-    if cfg.uses_classes:
-        classes = jax.lax.broadcasted_iota(jnp.int32, (32, n_flat), 0)
-        onehot = (classes == c_flat.astype(jnp.int32)).astype(jnp.float32)
-        col = jax.lax.dot_general(
-            sq, onehot,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        return col.astype(jnp.int32)
-    eq = q_ext.astype(jnp.int32) == c_flat.astype(jnp.int32)
-    return jnp.where(eq, jnp.int32(cfg.costs.match), jnp.int32(cfg.costs.mismatch))
-
-
 def build_sq(q_ext: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
-    """Per-query cost slice ``Sq[i, c] = table[q_class[i], c]`` as f32
-    ``(rows, 32)``, built with one one-hot matmul (``q_ext`` already
-    class-mapped host-side via ``byte_to_class``)."""
-    classes = jax.lax.broadcasted_iota(jnp.int32, (q_ext.shape[0], 32), 1)
-    onehot = (classes == q_ext.astype(jnp.int32)).astype(jnp.float32)
-    return jax.lax.dot_general(
-        onehot, table.astype(jnp.float32),
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
+    """Per-query cost slice ``Sq[i, c] = table[q_class[i], c]`` as int32
+    ``(rows, 32)`` — one row gather (``q_ext`` is already class-mapped
+    via ``byte_to_class``)."""
+    q = jnp.clip(q_ext.reshape(-1).astype(jnp.int32), 0, 31)
+    return jnp.take(table.astype(jnp.int32), q, axis=0)
 
 
 def _column_step_linear(D, j, c_row, q_ext, clens, cfg: SimilarityConfig,
@@ -356,8 +318,7 @@ def column_step(state, j, c_row, q_ext, clens, cfg: SimilarityConfig, sq=None,
 
     ``state`` is ``(D,)`` for linear gaps or ``(D, I)`` for affine. Returns the
     new state tuple. All arrays follow the module-level 2D shape conventions.
-    ``sub`` optionally supplies the precomputed substitution column (used by
-    the Pallas kernel to software-pipeline it ahead of the DP recurrence).
+    ``sub`` optionally supplies the precomputed substitution column.
     """
     if cfg.is_affine:
         D, I = state
@@ -389,9 +350,7 @@ def update_best(best, D, cfg: SimilarityConfig):
 
 
 # ---------------------------------------------------------------------------
-# Pure-jnp oracle — the serial baseline every Pallas kernel is validated
-# against, mirroring how the reference validates SIMD tiers against
-# ``sz_cap_serial_k`` (reference ``test/similarities.cuh``).
+# Block and batch drivers
 # ---------------------------------------------------------------------------
 
 
@@ -405,8 +364,7 @@ def score_block(
     table: jnp.ndarray | None = None,  # (32, 32) int32 when cfg uses classes
 ) -> jnp.ndarray:
     """Score one query against a lane-packed candidate block. Returns
-    ``(1, lanes) int32``. This is the jnp oracle; the Pallas kernel in
-    ``similarity_pallas.py`` computes the identical recurrence on-chip."""
+    ``(1, lanes) int32``."""
     rows = q_ext.shape[0]
     Lc, lanes = cands_t.shape
     sq = build_sq(q_ext, table) if cfg.uses_classes else None
@@ -423,3 +381,42 @@ def score_block(
 
     (state, best), _ = jax.lax.scan(body, (state, best0), jnp.arange(1, Lc + 1))
     return extract_result(state[0], qlen, clens, cfg, best)
+
+
+@partial(jax.jit, static_argnames=("cfg",))
+def _score_chunk(q_ext_t, qlens, cands_t, clens, cfg, table=None):
+    def one(q, qlen):
+        return score_block(q[:, None], qlen, cands_t, clens, cfg, table)[0]
+
+    return jax.vmap(one)(q_ext_t.T, qlens.reshape(-1))
+
+
+#: Cells of one (queries x rows x lanes) DP column held at once; bigger
+#: buckets run in query chunks.
+_BATCH_CELLS = 1 << 26
+
+
+def score_batch(
+    q_ext_t: jnp.ndarray,  # (rows, n_queries) int32, row 0 = padding
+    qlens: jnp.ndarray,  # (n_queries, 1) int32
+    cands_t: jnp.ndarray,  # (Lc, n_cands) int32, candidates across lanes
+    clens: jnp.ndarray,  # (1, n_cands) int32
+    cfg: SimilarityConfig,
+    table: jnp.ndarray | None = None,
+) -> jnp.ndarray:
+    """All-pairs scores ``(n_queries, n_cands) int32`` for one shape bucket:
+    every query of a chunk advances together, one jit per chunk shape."""
+    rows, nq = q_ext_t.shape
+    nc = cands_t.shape[1]
+    chunk = max(1, _BATCH_CELLS // max(rows * nc, 1))
+    chunk = min(1 << (chunk.bit_length() - 1), nq)
+    if chunk >= nq:
+        return _score_chunk(q_ext_t, qlens, cands_t, clens, cfg, table)
+    pad = (-nq) % chunk
+    if pad:
+        q_ext_t = jnp.pad(q_ext_t, ((0, 0), (0, pad)))
+        qlens = jnp.pad(qlens, ((0, pad), (0, 0)))
+    parts = [_score_chunk(q_ext_t[:, s:s + chunk], qlens[s:s + chunk],
+                          cands_t, clens, cfg, table)
+             for s in range(0, nq + pad, chunk)]
+    return jnp.concatenate(parts, axis=0)[:nq]

@@ -4,7 +4,7 @@ The reference exports pointer-sized "pgrams" (first 8 bytes) to a contiguous
 buffer, runs a 3-way-partition QuickSort on them, and recurses into equal runs
 at deeper offsets (reference ``include/stringzilla/sort.h:87,141``,
 ``sort/serial.h:25-105``). Recursion into data-dependent equal runs is hostile
-to XLA, so the TPU design sorts ONCE, lexicographically, on the full key
+to XLA, so the design here sorts ONCE, lexicographically, on the full key
 ladder:
 
 * every string's bytes become big-endian ``uint32`` key words (zero-padded —
@@ -73,9 +73,8 @@ def _device_argsort(keys: jnp.ndarray, num_keys: int) -> jnp.ndarray:
 def _argsort_keys(keys: np.ndarray, top_count: int | None,
                   prefer_device: bool = False) -> np.ndarray:
     """Sort the key matrix. Host ``np.lexsort`` is the one-shot default —
-    measured on v5e, ``lax.sort`` at 2^20 items runs 0.13 s warm but takes
-    over a minute to COMPILE, so the device tier only pays off for repeated
-    same-shape batches (set ``prefer_device`` from device-resident
+    ``lax.sort`` over a large key matrix takes long to COMPILE, so the
+    device tier only pays off for repeated same-shape batches (set ``prefer_device`` from device-resident
     pipelines; the key matrix is padded to a dyadic row count so compiled
     specializations amortize across sizes)."""
     n = keys.shape[0]

@@ -4,7 +4,7 @@ The reference's batch ABI takes strings either through a callback ``sz_sequence_
 or as Arrow tapes: one contiguous data blob plus ``count+1`` offsets
 (``sz_sequence_u32tape_t`` / ``u64tape_t``, reference
 ``include/stringzillas/stringzillas.h:61-76``). The tape layout is exactly what a
-TPU wants — a dense ``u8`` device array plus an offsets array — so it is the
+device wants — a dense ``u8`` device array plus an offsets array — so it is the
 native container here, not a compatibility shim.
 
 Ragged→dense conversion happens through *length-bucketed packing*: strings are
@@ -128,7 +128,7 @@ def pack_dense(
     Returns ``(chars, lengths)`` where ``chars`` is ``uint8[count_padded, L]``
     (or ``[L, count_padded]`` when ``transpose``, the column-major layout the
     lane-packed DP kernels consume — candidates across lanes, characters down
-    sublanes, mirroring ``candidate_lanes_block`` in the reference,
+    rows, mirroring ``candidate_lanes_block`` in the reference,
     ``include/stringzillas/types.hpp:316-330``).
     """
     if indices is None:

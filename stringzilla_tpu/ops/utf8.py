@@ -236,21 +236,22 @@ _UNCASED_DEVICE_MIN = 1 << 20
 
 def _uncased_find_device(hb, nd_f: np.ndarray,
                          min_bytes: int | None = None,
-                         allow_interpret: bool = False,
+                         allow_cpu: bool = False,
                          hay2d=None, folded2d=None):
     """Device tier for case-insensitive search over big, ASCII-dominant
-    buffers: fold ASCII on chip with the 256-LUT transform kernel (ASCII
-    case folding is 1:1 byte-level), stream the anomaly search kernel over
-    the folded bytes, and patch every window that can touch a non-ASCII run
+    buffers: fold ASCII on the device with the 256-LUT transform (ASCII
+    case folding is 1:1 byte-level), run the anomaly search over the folded
+    bytes, and patch every window that can touch a non-ASCII run
     with the exact native scanner. Byte-fold matches are genuine (a >=0x80
     byte can never equal an ASCII needle byte, so any reported window is
     all-ASCII); the patches only add the matches that *involve* non-ASCII
     folding (K -> k, ß -> ss, ...). Returns ``(off, len)`` / ``(-1, 0)``,
-    or None when the shape doesn't qualify.
+    or None when the shape doesn't qualify (or, unless ``allow_cpu``, when
+    there is no GPU).
     """
     from ..utils import native, platform
 
-    if (platform.pallas_interpret() and not allow_interpret) \
+    if (platform.backend() != "gpu" and not allow_cpu) \
             or not native.available():
         return None
     k = int(len(nd_f))
@@ -258,7 +259,7 @@ def _uncased_find_device(hb, nd_f: np.ndarray,
     if k == 0 or n < (
             _UNCASED_DEVICE_MIN if min_bytes is None else min_bytes):
         return None
-    from .find_pallas import BLOCK_ROWS, LANES, MAX_OFFSETS, search_positions
+    from .find import BLOCK_ROWS, LANES, MAX_OFFSETS, search_positions
 
     if k > MAX_OFFSETS or (np.asarray(nd_f) >= 0x80).any():
         return None
@@ -268,7 +269,7 @@ def _uncased_find_device(hb, nd_f: np.ndarray,
     import jax.numpy as jnp
 
     from .find import byteset_mask
-    from .memory_pallas import lookup_transform
+    from .memory import lookup_transform
 
     arr = (np.frombuffer(hb, dtype=np.uint8)
            if isinstance(hb, (bytes, bytearray, memoryview))
@@ -282,7 +283,7 @@ def _uncased_find_device(hb, nd_f: np.ndarray,
     if folded2d is None:
         lut = np.arange(256, dtype=np.uint8)
         lut[65:91] += 32  # A-Z → a-z; ASCII case folding is exactly tolower
-        folded2d = lookup_transform(hay2d, int(hay2d.shape[0]) * LANES, lut)
+        folded2d = lookup_transform(hay2d, lut)
     hi_ws = byteset_mask(bytes(range(128, 256)))
     needle = np.asarray(nd_f, dtype=np.uint8)
     margin = 4 * k + 8  # max source-byte span of a k-folded-rune window

@@ -2,11 +2,10 @@
 
 The reference's rune layer is register-wide lead-byte classification
 (``sz_utf8_count``/``sz_utf8_decode``, reference ``utf8_runes.h:34-96``,
-per-ISA kernels under ``utf8_runes/``). The TPU analog: RFC 3629 validity is
-a *local* property — every byte's class must agree with the class of the
-1-3 bytes before it — so the whole check vectorizes into shifted compares
-over VMEM-resident u8 blocks (one Pallas streaming pass; halo rows give
-the ±3-byte context across block boundaries):
+per-ISA kernels under ``utf8_runes/``). Here RFC 3629 validity is a *local*
+property — every byte's class must agree with the class of the 1-3 bytes
+before it — so the whole check is shifted compares over the device mirror,
+fused by XLA into one pass ending in two sums:
 
 * structural: continuation bytes exactly where a preceding lead demands;
 * range: no C0/C1/F5-FF leads, no overlongs (E0 A0.., F0 90..), no
@@ -21,8 +20,6 @@ the host's exact maximal-subpart (U+FFFD) semantics.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,23 +27,49 @@ import numpy as np
 __all__ = ["validate_count_device", "utf8_valid"]
 
 
-def _validate_count_raw(mirror: jnp.ndarray, n: int) -> jnp.ndarray:
-    """Pallas tier: returns the (1, 2) i32 device array
-    ``[[violations, rune_count]]`` (no host sync — benchable)."""
-    from ..utils import platform
+@jax.jit
+def _validate_count_jit(mirror, n):
+    # Zero bytes after the buffer read as ASCII — the neutral "no lead"
+    # context — and give the truncated-trailing-lead check room at n..n+2.
+    Y = jnp.concatenate([mirror.reshape(-1).astype(jnp.int32),
+                         jnp.zeros((4,), jnp.int32)])
+    # classify once into bit flags, then shift the single class array
+    CLS = (((Y & 0xC0) == 0x80).astype(jnp.int32)
+           | (((Y >= 0xC2) & (Y <= 0xDF)).astype(jnp.int32) << 1)
+           | (((Y & 0xF0) == 0xE0).astype(jnp.int32) << 2)
+           | (((Y >= 0xF0) & (Y <= 0xF4)).astype(jnp.int32) << 3)
+           | ((Y == 0xE0).astype(jnp.int32) << 4)
+           | ((Y == 0xED).astype(jnp.int32) << 5)
+           | ((Y == 0xF0).astype(jnp.int32) << 6)
+           | ((Y == 0xF4).astype(jnp.int32) << 7)
+           | ((Y >= 0x80).astype(jnp.int32) << 8))
 
-    rows = int(mirror.shape[0])
-    nb = max(-(-rows // _VAL_BLOCK), 1)
-    if nb * _VAL_BLOCK * 128 - n < 3:
-        nb += 1  # room for the truncated-trailing-lead check at pos n..n+2
-    if rows != nb * _VAL_BLOCK:
-        mirror = jnp.concatenate(
-            [mirror, jnp.zeros((nb * _VAL_BLOCK - rows, 128), mirror.dtype)],
-            axis=0)
-    halo = jnp.zeros((_VAL_HALO, 128), mirror.dtype)
-    padded = jnp.concatenate([halo, mirror, halo], axis=0)
-    call = _build_val(nb, platform.pallas_interpret())
-    return call(padded, mirror, jnp.asarray([[n]], jnp.int32))
+    def prev(X, k):  # X[p - k], zeros (ASCII) before the buffer
+        return jnp.concatenate([jnp.zeros((k,), X.dtype), X[:-k]])
+
+    c0, c1, c2, c3 = CLS, prev(CLS, 1), prev(CLS, 2), prev(CLS, 3)
+    pos = jnp.arange(Y.shape[0], dtype=jnp.int32)
+    inside = pos < n
+    cont_b = (c0 & 1) == 1
+    bad_lead = ((c0 >> 8) & 1 & ~(c0 | (c0 >> 1) | (c0 >> 2) | (c0 >> 3))) == 1
+    must_cont = (((c1 >> 1) | (c1 >> 2) | (c1 >> 3)
+                  | (c2 >> 2) | (c2 >> 3) | (c3 >> 3)) & 1) == 1
+    # structure is checked past the end too (a truncated trailing lead)
+    struct_bad = (cont_b != must_cont) & (pos < n + 3)
+    bad_rng = cont_b & (((((c1 >> 4) & 1) == 1) & (Y < 0xA0))
+                        | ((((c1 >> 5) & 1) == 1) & (Y >= 0xA0))
+                        | ((((c1 >> 6) & 1) == 1) & (Y < 0x90))
+                        | ((((c1 >> 7) & 1) == 1) & (Y >= 0x90)))
+    viol = (bad_lead | bad_rng) & inside | struct_bad
+    runes = ~cont_b & inside
+    return jnp.stack([jnp.sum(viol.astype(jnp.int32)),
+                      jnp.sum(runes.astype(jnp.int32))]).reshape(1, 2)
+
+
+def _validate_count_raw(mirror: jnp.ndarray, n: int) -> jnp.ndarray:
+    """Returns the (1, 2) i32 device array ``[[violations, rune_count]]``
+    (no host sync — benchable)."""
+    return _validate_count_jit(mirror, jnp.int32(n))
 
 
 def validate_count_device(mirror, n: int):
@@ -56,130 +79,9 @@ def validate_count_device(mirror, n: int):
     return int(out[0, 0]) == 0, int(out[0, 1])
 
 
-# ---------------------------------------------------------------------------
-# Pallas tier: the same checks over VMEM-resident u8 blocks (the XLA tier
-# widens every shifted copy to int32 in HBM — ~10× the traffic).
-# ---------------------------------------------------------------------------
-
-_VAL_BLOCK = 1024  # haystack rows per grid step (128 KiB, as find_pallas)
-_VAL_HALO = 32  # u8 min tile; covers the ±3-byte context
-
-
-def _val_kernel(interpret: bool, refs):
-    from jax.experimental import pallas as pl
-
-    prev_ref, main_ref, next_ref, n_ref, out_ref, acc_ref = refs
-    from .find_pallas import _shifted
-
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        acc_ref[...] = jnp.zeros((2, 128), jnp.int32)
-
-    # [prev halo | main | next halo] as one flat block; index base of main
-    # is _VAL_HALO rows in.
-    Y = jnp.concatenate(
-        [prev_ref[...], main_ref[...], next_ref[...]], axis=0
-    ).astype(jnp.int32)
-    base = _VAL_HALO * 128
-
-    # Classify ONCE over the whole (block+halo) stream into bit flags, then
-    # shift the single class array — cheaper than shifting raw bytes three
-    # times and re-classifying every copy.
-    contY = (Y & 0xC0) == 0x80
-    l2Y = (Y >= 0xC2) & (Y <= 0xDF)
-    l3Y = (Y & 0xF0) == 0xE0
-    l4Y = (Y >= 0xF0) & (Y <= 0xF4)
-    CLS = (contY.astype(jnp.int32)
-           | (l2Y.astype(jnp.int32) << 1)
-           | (l3Y.astype(jnp.int32) << 2)
-           | (l4Y.astype(jnp.int32) << 3)
-           | ((Y == 0xE0).astype(jnp.int32) << 4)
-           | ((Y == 0xED).astype(jnp.int32) << 5)
-           | ((Y == 0xF0).astype(jnp.int32) << 6)
-           | ((Y == 0xF4).astype(jnp.int32) << 7)
-           | ((Y >= 0x80).astype(jnp.int32) << 8))
-
-    def at(X, off):  # stream shifted so row r aligns with main[r], off ∈ [-3, 3]
-        return _shifted(X, base + off, interpret)[:_VAL_BLOCK]
-
-    b = at(Y, 0)
-    c0 = at(CLS, 0)
-    c1, c2, c3 = at(CLS, -1), at(CLS, -2), at(CLS, -3)
-
-    # the caller zero-fills before/after the buffer, so out-of-buffer context
-    # reads as ASCII — exactly the "no preceding lead" neutral element
-    pos = (jax.lax.broadcasted_iota(jnp.int32, b.shape, 0) * 128
-           + jax.lax.broadcasted_iota(jnp.int32, b.shape, 1)
-           + i * (_VAL_BLOCK * 128))
-    n = n_ref[0, 0]
-    inside = pos < n
-
-    cont_b = (c0 & 1) == 1
-    bad_lead = ((c0 >> 8) & 1 & ~(c0 | (c0 >> 1) | (c0 >> 2) | (c0 >> 3))) == 1
-    must_cont = (((c1 >> 1) | (c1 >> 2) | (c1 >> 3)
-                  | (c2 >> 2) | (c2 >> 3) | (c3 >> 3)) & 1) == 1
-    # structure checked one position past the end too (truncated trailing
-    # lead): the zero padding is not a continuation
-    struct_bad = (cont_b != must_cont) & (pos < n + 3)
-    bad_rng = cont_b & (((((c1 >> 4) & 1) == 1) & (b < 0xA0))
-                        | ((((c1 >> 5) & 1) == 1) & (b >= 0xA0))
-                        | ((((c1 >> 6) & 1) == 1) & (b < 0x90))
-                        | ((((c1 >> 7) & 1) == 1) & (b >= 0x90)))
-    viol = (bad_lead | bad_rng) & inside | struct_bad
-    # vector accumulators in VMEM scratch; one scalar reduction at the END
-    # of the sequential grid (a full (rows,128)→scalar tree per block was
-    # the bottleneck at 1024-row blocks)
-    v = jnp.sum(viol.astype(jnp.int32), axis=0).reshape(1, 128)
-    c = jnp.sum((~cont_b & inside).astype(jnp.int32), axis=0).reshape(1, 128)
-    acc_ref[...] = acc_ref[...] + jnp.concatenate([v, c], axis=0)
-
-    @pl.when(i == pl.num_programs(0) - 1)
-    def _():
-        out_ref[0, 0] = jnp.sum(acc_ref[0])
-        out_ref[0, 1] = jnp.sum(acc_ref[1])
-
-
-@functools.lru_cache(maxsize=16)
-def _build_val(n_blocks: int, interpret: bool):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    kernel = functools.partial(_val_kernel, interpret)
-    k = _VAL_BLOCK // _VAL_HALO
-
-    in_specs = [
-        # previous block's last halo rows (block 0 reads rows 0 — junk that
-        # the zero padding region makes neutral... see wrapper: a leading
-        # zero-row pad block is prepended so block 0's prev halo is zeros)
-        pl.BlockSpec((_VAL_HALO, 128), lambda i: (i * k, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((_VAL_BLOCK, 128), lambda i: (i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((_VAL_HALO, 128), lambda i: (i * k + k + 1, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-    ]
-
-    def wrapped(padded, main_view, n_arr):
-        return pl.pallas_call(
-            lambda *refs: kernel(refs),
-            grid=(n_blocks,),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((1, 2), lambda i: (0, 0),
-                                   memory_space=pltpu.SMEM),
-            out_shape=jax.ShapeDtypeStruct((1, 2), jnp.int32),
-            scratch_shapes=[pltpu.VMEM((2, 128), jnp.int32)],
-            interpret=interpret,
-        )(padded, main_view, padded, n_arr)
-
-    return jax.jit(wrapped)
-
-
 def utf8_valid(data) -> bool:
     """Whether ``data`` is well-formed UTF-8 (RFC 3629). Host tier:
-    CPython's decoder; big buffers on a TPU backend take the device pass."""
+    CPython's decoder; big ``Str`` buffers on a GPU take the device pass."""
     from ..models.str_api import Str
     from .utf8 import _as_bytes
 

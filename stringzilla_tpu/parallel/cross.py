@@ -1,11 +1,11 @@
 """Mesh-parallel cross-product scoring.
 
 The reference parallelizes cross-products over a NUMA thread pool
-(``cross_in_parallel_``, reference ``similarities/serial.hpp:3296-3395``). The
-TPU-native equivalent shards the candidate axis over the scope's mesh with
-``shard_map``: queries are replicated (the "shared query broadcast" of the
-lane walker), candidates and the result matrix are sharded along ``data``, and
-all communication rides the ICI when results are gathered.
+(``cross_in_parallel_``, reference ``similarities/serial.hpp:3296-3395``).
+Here the candidate axis is sharded over the scope's mesh with ``shard_map``:
+queries are replicated (the "shared query broadcast" of the lane walker),
+candidates and the result matrix are sharded along ``data``, and the only
+communication is gathering the results.
 """
 
 from __future__ import annotations
@@ -17,9 +17,8 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..ops.myers_pallas import myers_pallas
-from ..ops.similarity import SimilarityConfig
-from ..ops.similarity_pallas import similarity_pallas
+from ..ops import myers
+from ..ops.similarity import SimilarityConfig, score_batch
 
 __all__ = [
     "sharded_similarity",
@@ -32,38 +31,39 @@ __all__ = [
 
 
 def sharded_myers(q_t, qlens, cands_t, clens, mesh: Mesh,
-                  lane_block: int | None = None, alphabet: int | None = 256):
+                  alphabet: int | None = 256):
     """Candidate-sharded Myers bit-parallel distances: queries replicated,
-    candidates and results split along the mesh's ``data`` axis."""
+    candidates and results split along the mesh's ``data`` axis. Characters
+    are mapped to PEQ codes once, outside the shards."""
+    q_codes, c_codes, A = myers.encode(q_t, cands_t, alphabet)
+    form = (myers.myers_kernel if myers.use_kernel(q_t.shape[0] // 32)
+            else myers.myers_reference)
 
     def run(q, ql, c, cl):
-        return myers_pallas(q, ql, c, cl, lane_block=lane_block,
-                            alphabet=alphabet)
+        return form(q, ql, c, cl, A)
 
     fn = shard_map(
         run, mesh=mesh,
         in_specs=(P(None, None), P(None, None), P(None, "data"), P(None, "data")),
         out_specs=P(None, "data"), check_vma=False,
     )
-    return fn(q_t, qlens, cands_t, clens)
+    return fn(q_codes, qlens, c_codes, clens)
 
 
 def sharded_similarity(
     q_ext_t,  # (rows, n_queries) replicated
     qlens,  # (n_queries, 1) replicated
-    cands_t,  # (cand_len, n_cands) — n_cands divisible by ndev * lane_block
+    cands_t,  # (cand_len, n_cands) — n_cands divisible by ndev
     clens,  # (1, n_cands)
     cfg: SimilarityConfig,
     mesh: Mesh,
     table=None,
-    lane_block: int | None = None,
 ):
     """Returns ``(n_queries, n_cands) int32`` sharded along the candidate axis."""
     has_table = table is not None
 
     def run(q, ql, c, cl, *tb):
-        return similarity_pallas(q, ql, c, cl, cfg, tb[0] if has_table else None,
-                                 lane_block=lane_block)
+        return score_batch(q, ql, c, cl, cfg, tb[0] if has_table else None)
 
     in_specs = [P(None, None), P(None, None), P(None, "data"), P(None, "data")]
     if has_table:
@@ -144,7 +144,7 @@ def _sharded_match_stats(haystack, needle, mesh: Mesh):
 def sharded_find(haystack, needle, mesh: Mesh) -> int:
     """Mesh-sharded ``sz_find``: haystack split over ``data`` with a
     (k-1)-byte halo, first-match indices combined with a min collective
-    over ICI. Dense tier only (needle ≤ 64 B)."""
+    across the mesh. Dense tier only (needle ≤ 64 B)."""
     stats, n, k = _sharded_match_stats(haystack, needle, mesh)
     if k == 0:
         return 0
@@ -174,10 +174,10 @@ def sharded_count(haystack, needle, mesh: Mesh) -> int:
 
 def sharded_hashes(data2d: np.ndarray, lengths: np.ndarray, seed: int,
                    n_blocks: int, mesh: Mesh) -> np.ndarray:
-    """Token-hash kernel sharded over the lanes (tokens) axis: each device
-    runs the Pallas aHash pipeline on its lane slice; results concatenate
-    along ``data``. Lanes must be divisible by ndev × LANES_BLOCK."""
-    from ..ops.hash_pallas import hash_tokens_raw
+    """Token hashes sharded over the lanes (tokens) axis: each device
+    hashes its lane slice; results concatenate along ``data``. Lanes must be
+    divisible by ndev."""
+    from ..ops.hash_device import hash_tokens_raw
 
     def run(d2d, lens):
         return hash_tokens_raw(d2d, lens[0], seed, n_blocks)
@@ -193,7 +193,7 @@ def sharded_hashes(data2d: np.ndarray, lengths: np.ndarray, seed: int,
 def sharded_argsort(keys, mesh: Mesh, num_keys: int | None = None):
     """Argsort of packed pgram keys with the key matrix sharded over the
     mesh — jitted with sharded inputs so XLA/GSPMD inserts the gather
-    collectives (the TPU answer to the reference's parallel stable sort,
+    collectives (the counterpart of the reference's parallel stable sort,
     ``sort.h``). ``keys`` is ``(n, w)`` with lexicographic priority on
     columns (``ops.sort.pack_pgram_keys`` layout)."""
     keys = jnp.asarray(keys)
@@ -213,16 +213,15 @@ def sharded_argsort(keys, mesh: Mesh, num_keys: int | None = None):
 
 
 def sharded_fingerprints(docs_t, lens, widths, group_sizes, mult, m_limbs,
-                         fd_limbs, inv_m, mesh: Mesh, lane_block: int = 128):
+                         fd_limbs, inv_m, mesh: Mesh):
     """Document-sharded MinHash fingerprints: the dimension parameters are
     replicated, documents and outputs split along ``data`` — the analog of
     the reference's docs×dim-groups thread fan-out
     (``floating_rolling_hashers_in_parallel_``, ``fingerprints/serial.hpp:994``)."""
-    from ..ops.fingerprints_pallas import fingerprint_all_groups
+    from ..ops.fingerprints import fingerprint_all_groups
 
     def run(d, l, w, mu, ml, fl, im):
-        return fingerprint_all_groups(d, l, w, group_sizes, mu, ml, fl, im,
-                                      lane_block=lane_block)
+        return fingerprint_all_groups(d, l, w, group_sizes, mu, ml, fl, im)
 
     fn = shard_map(
         run, mesh=mesh,

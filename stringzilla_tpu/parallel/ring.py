@@ -1,9 +1,9 @@
 """Cross-chip wavefront: ONE pair's DP matrix sharded over the mesh.
 
-The single-chip wavefront (``ops/wavefront_pallas``) caps at what one chip's
-memory holds. For longer pairs the reference's GPU tier passes tile
-boundaries through a global ``row_frontier`` (reference
-``similarities/cuda.cuh:708-749``); the multi-chip analog maps that frontier
+The single-device wavefront (``ops/wavefront``) walks one pair's diagonals
+serially on one device. The reference's GPU tier passes tile boundaries
+through a global ``row_frontier`` (reference
+``similarities/cuda.cuh:708-749``); the multi-device form maps that frontier
 exchange onto **``ppermute`` along the mesh ring**:
 
 * the first operand's rows are split into D contiguous chunks (one per
@@ -11,7 +11,7 @@ exchange onto **``ppermute`` along the mesh ring**:
 * macro-step t: device d computes tile ``(rows d, column block t-d)`` — a
   systolic pipeline, D stages deep;
 * each tile consumes the bottom rows of the chunk above (the D — and for
-  affine also the vertical-gap F — frontier, received over ICI last step)
+  affine also the vertical-gap F — frontier, received last step)
   and its own right columns (kept local), and emits its bottoms to the
   next device;
 * inside a tile, every column is one dense vector step over the chunk's
@@ -20,11 +20,11 @@ exchange onto **``ppermute`` along the mesh ring**:
   prefix scan as the lane-packed kernels (``ops/similarity._chain_scan``).
 
 Full config space of the single-chip tiers: uniform OR 32×32 class-cost
-substitution (one-hot MXU matmul per chunk), linear OR Gotoh affine gaps
+substitution (an integer gather per chunk), linear OR Gotoh affine gaps
 (k-gap = open + extend·(k-1)), global OR local (Smith-Waterman clamp +
 running best) alignment, min or max objective. Exact int32; validated
 against the Gotoh/Wagner-Fischer oracles on the virtual multi-device CPU
-mesh — the same shard_map program compiles to ICI collectives on a pod.
+mesh — the same shard_map program runs over NVLink on several GPUs.
 """
 
 from __future__ import annotations
@@ -119,13 +119,9 @@ def _build_ring(mesh: Mesh, mb: int, C: int, NB: int, match: int,
         b_full = b_full.astype(jnp.int32)
 
         if use_table:
-            # one-hot MXU: rowcost[i, c] = table[a_class[i], c] — exact in
-            # f32 (costs are small ints), computed once per device
-            acls = jnp.clip(a_chunk, 0, 31)
-            onehot = (acls[:, None] ==
-                      jnp.arange(32, dtype=jnp.int32)[None, :]).astype(jnp.float32)
-            rowcost = jnp.dot(onehot, table.astype(jnp.float32),
-                              preferred_element_type=jnp.float32).astype(jnp.int32)
+            # rowcost[i, c] = table[a_class[i], c], gathered once per device
+            rowcost = jnp.take(table.astype(jnp.int32),
+                               jnp.clip(a_chunk, 0, 31), axis=0)
 
         if is_local:
             left0_D = jnp.zeros(mb, jnp.int32)

@@ -1,4 +1,4 @@
-"""Out-of-process engine serving — the TPU-honest analog of the reference's
+"""Out-of-process engine serving — the counterpart of the reference's
 engine-level C ABI (``include/stringzillas/stringzillas.h:104-597``).
 
 The reference exports ``szs_*`` C entry points so non-C callers can reach its

@@ -22,7 +22,7 @@ C_CONSUMER = r"""
 int main(void) {
     if (tc_version() < 3) { puts("BAD version"); return 1; }
 
-    const char* text = "hello TPU world";
+    const char* text = "hello GPU world";
     unsigned long long s = tc_bytesum((const uint8_t*)text, 15);
     unsigned long long want = 0;
     for (int i = 0; i < 15; ++i) want += (unsigned char)text[i];

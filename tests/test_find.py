@@ -1,5 +1,5 @@
-"""Exact-search tests: XLA path, Pallas streaming kernel (interpreted on CPU),
-and the Str front-end — all differential vs Python's bytes built-ins, the same
+"""Exact-search tests: XLA path, the device-mirror search tier, and the Str
+front-end — all differential vs Python's bytes built-ins, the same
 "every tier vs serial oracle" strategy as the reference test suite
 (reference ``test/find.cpp``, ``test/test_find.py``)."""
 
@@ -8,7 +8,7 @@ import pytest
 
 from stringzilla_tpu.ops import find as F
 from stringzilla_tpu.ops.find import byteset_mask
-from stringzilla_tpu.ops.find_pallas import (
+from stringzilla_tpu.ops.find import (
     BLOCK_ROWS,
     LANES,
     MAX_OFFSETS,
@@ -73,7 +73,7 @@ def test_find_edges():
 
 
 # ---------------------------------------------------------------------------
-# Pallas streaming tier (interpreted on CPU in tests)
+# Device-mirror search tier (search_positions / find_long)
 # ---------------------------------------------------------------------------
 
 

@@ -1,4 +1,4 @@
-"""Fingerprints: Pallas integer-limb kernel vs exact f64/NumPy oracle vs a
+"""Fingerprints: the device integer-limb form vs exact f64/NumPy oracle vs a
 pure-Python-int reimplementation (triple differential)."""
 
 import numpy as np

@@ -96,15 +96,15 @@ def test_ring_class_costs(mesh, rng):
 
 
 def test_engine_routes_oversize_pairs_to_ring(mesh, rng, monkeypatch):
-    """A pair beyond one chip's wavefront reach (MAX_FLAT_CELLS) must route
-    to the cross-chip ring tier under a multi-device scope instead of
-    raising (thresholds shrunk to keep the interpreter fast)."""
+    """A pair beyond ``RING_MIN_CELLS`` must route to the cross-device ring
+    tier under a multi-device scope (thresholds shrunk to keep the test
+    fast)."""
     import stringzilla_tpu as sz
     import stringzilla_tpu.models.similarities as sim
-    from stringzilla_tpu.ops import wavefront_pallas
+    from stringzilla_tpu.ops import wavefront
 
     monkeypatch.setattr(sim, "_LONG_THRESHOLD", 64)
-    monkeypatch.setattr(wavefront_pallas, "MAX_FLAT_CELLS", 128)
+    monkeypatch.setattr(wavefront, "RING_MIN_CELLS", 128)
     a = bytes(rng.integers(97, 101, 200).astype(np.uint8))
     b = bytes(rng.integers(97, 101, 251).astype(np.uint8))
     scope = sz.DeviceScope(mesh=mesh)

@@ -255,7 +255,7 @@ def test_ucd_tables_sane():
 
 def test_uncased_device_tier(rng):
     """Device tier of uncased search (LUT fold + streaming find + native
-    patches around non-ASCII runs) vs the native scanner, interpreted."""
+    patches around non-ASCII runs) vs the native scanner, on the CPU."""
     from stringzilla_tpu.ops.utf8 import _uncased_find_device, utf8_uncased_find
     from stringzilla_tpu.ops import utf8 as U
 
@@ -280,7 +280,7 @@ def test_uncased_device_tier(rng):
     for hay, nd in cases:
         nd_f, _, _ = U._folded_with_spans(nd.encode())
         got = _uncased_find_device(hay, nd_f, min_bytes=0,
-                                   allow_interpret=True)
+                                   allow_cpu=True)
         want = utf8_uncased_find(hay, nd)
         assert got is not None, (nd,)
         assert got == want, (nd, got, want)

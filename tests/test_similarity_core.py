@@ -1,4 +1,4 @@
-"""Differential tests: jnp oracle and Pallas(interpret) kernel vs NumPy DP."""
+"""Differential tests: the block and batched DP drivers vs NumPy DP."""
 
 import numpy as np
 import pytest
@@ -11,9 +11,9 @@ from stringzilla_tpu.ops.similarity import (
     LinearGaps,
     SimilarityConfig,
     UniformCosts,
+    score_batch,
     score_block,
 )
-from stringzilla_tpu.ops.similarity_pallas import similarity_pallas
 
 from . import oracles
 
@@ -50,11 +50,10 @@ def run_block(q, cands, cfg, rows=None, length=None, lanes=None, table=None, use
         q_ext = q_ext2
         table = cfg.costs.table_np()
     if use_pallas:
-        out = similarity_pallas(
+        out = score_batch(
             jnp.asarray(q_ext), jnp.asarray([[len(q)]], dtype=jnp.int32),
             jnp.asarray(block), jnp.asarray(lens), cfg,
             table=None if table is None else jnp.asarray(table),
-            lane_block=lanes,
         )
         return np.asarray(out)[0, : len(cands)]
     out = score_block(

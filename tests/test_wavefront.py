@@ -1,10 +1,10 @@
-"""Anti-diagonal wavefront kernel (the long-pair tier) vs DP oracles, plus
-the engine routing that sends long pairs to it."""
+"""Anti-diagonal wavefront (the long-pair tier) vs DP oracles, plus the
+engine routing that sends long pairs to it."""
 
 import numpy as np
 import pytest
 
-from stringzilla_tpu.ops.wavefront_pallas import wavefront_score
+from stringzilla_tpu.ops.wavefront import wavefront_score
 
 from .oracles import levenshtein, score_linear
 
@@ -71,7 +71,7 @@ def test_wavefront_class_costs(rng):
 def test_engine_long_pair_classes_and_affine_guard(rng):
     from stringzilla_tpu import NeedlemanWunschScores
     from stringzilla_tpu.models import similarities as S
-    from stringzilla_tpu.ops.wavefront_pallas import wavefront_score as wf
+    from stringzilla_tpu.ops.wavefront import wavefront_score as wf
 
     b2c = (np.arange(256) % 20).astype(np.uint8)
     table = rng.integers(-4, 8, (32, 32)).astype(np.int32)
@@ -111,32 +111,11 @@ def test_wavefront_affine(rng):
                                    -5, -1, objective="max", local=True)
 
 
-def test_mim_staged_tier(rng):
-    """Staged meet-in-the-middle tier vs the flat kernel and the oracle."""
-    from stringzilla_tpu.ops.wavefront_pallas import (wavefront_score,
-                                                      wavefront_score_mim)
-
-    from .oracles import levenshtein
-
-    for _ in range(6):
-        m = int(rng.integers(4, 300))
-        n = int(rng.integers(4, 300))
-        a = rng.integers(97, 101, m).astype(np.uint8)
-        b = rng.integers(97, 101, n).astype(np.uint8)
-        assert wavefront_score_mim(a, b) == levenshtein(bytes(a), bytes(b))
-        got = wavefront_score_mim(a, b, match=0, mismatch=3, gap=2)
-        assert got == wavefront_score(a, b, match=0, mismatch=3, gap=2)
-    # degenerate shapes
-    assert wavefront_score_mim(np.zeros(0, np.uint8), b) == len(b)
-    assert wavefront_score_mim(a, np.zeros(0, np.uint8)) == len(a)
-    assert wavefront_score_mim(a[:1], b[:1]) in (0, 1)
-
-
 def test_banded_long_pair(rng):
     """Ukkonen band-doubling tier: exact vs the Wagner-Fischer oracle across
     near-duplicate and random pairs, including band-edge paths (tiny k0
     forces several rungs and the adaptive rung jump)."""
-    from stringzilla_tpu.ops.wavefront_pallas import levenshtein_long_pair
+    from stringzilla_tpu.ops.wavefront import levenshtein_long_pair
 
     for _ in range(12):
         m = int(rng.integers(1, 300))
@@ -159,7 +138,7 @@ def test_engine_routes_unit_cost_long_pairs_to_banded(rng, monkeypatch):
     long-pair path for near-duplicates)."""
     from stringzilla_tpu import LevenshteinDistances
     from stringzilla_tpu.models import similarities as S
-    from stringzilla_tpu.ops import wavefront_pallas as wp
+    from stringzilla_tpu.ops import wavefront as wp
 
     calls = {"banded": 0, "flat": 0}
     real_banded = wp.levenshtein_long_pair
@@ -190,7 +169,7 @@ def test_engine_routes_unit_cost_long_pairs_to_banded(rng, monkeypatch):
 
 
 def test_banded_edges():
-    from stringzilla_tpu.ops.wavefront_pallas import levenshtein_long_pair
+    from stringzilla_tpu.ops.wavefront import levenshtein_long_pair
 
     e = np.array([], np.uint8)
     x = np.array([97], np.uint8)
